@@ -12,6 +12,8 @@ CPU tensor its plain PyTorch version runs. Entry points run on the GPU
 unless the caller passes ``device="cpu"``.
 
 Ported so far: serving (checkpoint load, the ``local`` and fused decide
-arms, bucketed serving, ``launch.kernel_serve --serial``). Training comes
-next; see ROADMAP.md.
+arms, bucketed serving, ``launch.kernel_serve --serial``) and training on
+one GPU (``KernelMachine.fit`` and ``partial_fit``: TRON over formulation
+(4) under the ``local`` and ``otf_shard`` plans). See ROADMAP.md for what
+comes next.
 """

@@ -3,9 +3,13 @@
 The same fields, in the same order, with the same ``to_dict`` keys as the
 reference (``repro.api.config``), so a checkpoint written by either
 package loads in the other. Fields for parts the port does not have yet
-(training, the stream plan, the other solvers) are carried unchanged.
-``backend`` ("jnp" | "pallas") selects nothing in the port: a CUDA tensor
-always runs the hand-written kernels, a CPU tensor their plain versions.
+(the stream plan, the other solvers, the multi-device axes) are carried
+unchanged.
+Two fields are carried for checkpoint compatibility only and select
+nothing in the port: ``backend`` ("jnp" | "pallas"), since a CUDA tensor
+always runs the hand-written kernels and a CPU tensor their plain versions;
+and ``otf_block_rows``, since the plain versions chunk rows by m alone
+(``repro_torch.kernels.kmvp.otf_block_rows``), whatever the batch.
 """
 from __future__ import annotations
 
@@ -58,8 +62,8 @@ class MachineConfig:
     # execution-plan knobs
     data_axes: Tuple[str, ...] = ("data",)
     model_axis: Optional[str] = None
-    otf_block_rows: Optional[int] = None  # row chunk of the plain fused
-                                          # matvec (CPU); None -> by m
+    otf_block_rows: Optional[int] = None  # carried for checkpoints only;
+                                          # selects nothing in the port
     stream: StreamConfig = StreamConfig()
 
     def __post_init__(self):

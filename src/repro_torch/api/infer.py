@@ -5,7 +5,8 @@ The margin o(x) = k(x, basis)·β is one row of C·β. Each execution plan's
 under its own memory contract, on one device:
 
 * ``local`` — the dense reference: materialize the (n_query, m) gram
-  (the gram kernel on a GPU) and contract it with one matmul.
+  (the gram kernel on a GPU) and contract it with β in fixed-shape
+  256-row products, so a row's margin does not depend on its batch.
 * fused (``shard_map`` / ``auto`` / ``otf`` / ``otf_shard``) — the fused
   kmvp kernel: no (n_query, m) array ever exists. An (m, K) one-vs-rest β
   rides as K right-hand sides of one pass. Across several GPUs these
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.nystrom import KernelSpec, gram
+from repro_torch.kernels.gram import BLOCK_ROWS, padded_row_blocks
 from repro_torch.kernels.ops import otf_kmvp_fwd
 
 
@@ -38,31 +40,42 @@ class DecisionSpec(NamedTuple):
     policy: str = "fp32"
 
 
-def _queries(spec: DecisionSpec, X) -> torch.Tensor:
-    """Query rows as an fp32 tensor on the state's device (host arrays are
-    copied: a read-only numpy array cannot back a tensor)."""
-    if torch.is_tensor(X):
-        return X.to(device=spec.basis.device, dtype=torch.float32)
-    return torch.tensor(np.asarray(X), dtype=torch.float32,
-                        device=spec.basis.device)
+def as_f32(a, device) -> torch.Tensor:
+    """An array or tensor as a contiguous fp32 tensor on ``device`` (host
+    arrays are copied: a read-only numpy array cannot back a tensor)."""
+    if torch.is_tensor(a):
+        return a.to(device=device, dtype=torch.float32).contiguous()
+    return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
 
 
 # ------------------------------------------------------------------- local
+def contract_rows(C, beta):
+    """C @ beta as products of exactly ``BLOCK_ROWS`` rows each, the last
+    block zero-padded (:func:`~repro_torch.kernels.gram.padded_row_blocks`):
+    the GPU's matrix products pick their reduction by shape, so a row's
+    margin then does not depend on its batch."""
+    out = C.new_empty((C.shape[0],) + tuple(beta.shape[1:]))
+    for i, rows, c in padded_row_blocks(BLOCK_ROWS, C):
+        out[i:i + rows] = (c @ beta)[:rows]
+    return out
+
+
 def decide_local(config, spec: DecisionSpec, X):
-    """Dense reference: materialize the query gram, contract with β."""
+    """Dense reference: materialize the query gram, contract it with β in
+    fixed-shape row blocks (:func:`contract_rows`)."""
     del config
-    C = gram(_queries(spec, X), spec.basis, spec.kernel,
+    C = gram(as_f32(X, spec.basis.device), spec.basis, spec.kernel,
              policy=spec.policy)
-    return C @ spec.beta
+    return contract_rows(C, spec.beta)
 
 
 # ------------------------------------------------------------------ fused
 def decide_fused(config, spec: DecisionSpec, X):
     """Margins through the fused kmvp kernel, C never materialized. Any n;
     a row's margin does not depend on the other rows of the batch."""
-    return otf_kmvp_fwd(_queries(spec, X), spec.basis, spec.beta,
+    del config
+    return otf_kmvp_fwd(as_f32(X, spec.basis.device), spec.basis, spec.beta,
                         kind=spec.kernel.kind, sigma=spec.kernel.sigma,
-                        block_rows=config.otf_block_rows,
                         policy=spec.policy)
 
 

@@ -25,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: Kernel sources by name (``csrc/<name>.cu``).
-SOURCES = ("gram", "kmvp")
+SOURCES = ("gram", "kmvp", "kmvp_t")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 #: ptxas register/shared-memory report of the last build, by source name.
@@ -108,5 +108,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         lib.kmvp_fwd_spans.restype = i
         lib.kmvp_fwd_max_k.argtypes = []
         lib.kmvp_fwd_max_k.restype = i
+    elif name == "kmvp_t":
+        lib.kmvp_t_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+        lib.kmvp_t_launch.restype = i
+        lib.kmvp_t_spans.argtypes = [i]
+        lib.kmvp_t_spans.restype = i
+        lib.kmvp_t_max_k.argtypes = []
+        lib.kmvp_t_max_k.restype = i
     else:
         raise KeyError(f"unknown kernel source {name!r}; known: {SOURCES}")

@@ -23,9 +23,35 @@ launches = 0
 KINDS = {"gaussian": 0, "linear": 1}
 
 
-def gram_plain(x, z, *, kind: str = "gaussian", sigma: float = 1.0):
-    """The kernel's arithmetic in plain PyTorch: fp32 cross term, squared
-    norms, d2 = max(|x|^2 + |z|^2 - 2 x.z, 0), exp(-d2 / 2 sigma^2)."""
+#: Rows per product of the row-blocked plain products (:func:`gram_plain`
+#: and the ``local`` decide arm's C @ beta): one shape for every product,
+#: so a row's values do not depend on the batch that carries it (matrix
+#: products of different shapes may round differently).
+BLOCK_ROWS = 256
+
+
+def padded_row_blocks(rows: int, *tensors):
+    """Walk ``tensors`` (one leading length) in blocks of ``rows`` rows.
+
+    Yields ``(start, count, *blocks)``: each block is zero-padded to exactly
+    ``rows`` rows, so every product over a block has one shape whatever the
+    length is; ``count`` is how many of its rows are real."""
+    n = tensors[0].shape[0]
+    for i in range(0, n, rows):
+        blocks = [t[i:i + rows] for t in tensors]
+        count = blocks[0].shape[0]
+        if count < rows:
+            blocks = [torch.cat([b, b.new_zeros((rows - count,)
+                                                + tuple(b.shape[1:]))])
+                      for b in blocks]
+        yield (i, count, *blocks)
+
+
+def gram_rows(x, z, *, kind: str = "gaussian", sigma: float = 1.0):
+    """The kernel's arithmetic in plain PyTorch, on the rows given: fp32
+    cross term, squared norms, d2 = max(|x|^2 + |z|^2 - 2 x.z, 0),
+    exp(-d2 / 2 sigma^2). The fused plain versions call it on their own
+    fixed-shape row chunks."""
     xz = x @ z.T
     if kind == "linear":
         return xz
@@ -33,6 +59,16 @@ def gram_plain(x, z, *, kind: str = "gaussian", sigma: float = 1.0):
     zz = torch.sum(z * z, dim=1, keepdim=True).T
     d2 = torch.clamp_min(xx + zz - 2.0 * xz, 0.0)
     return torch.exp(-d2 / (2.0 * sigma ** 2))
+
+
+def gram_plain(x, z, *, kind: str = "gaussian", sigma: float = 1.0):
+    """The gram kernel's plain version: :func:`gram_rows` over blocks of
+    exactly ``BLOCK_ROWS`` rows (:func:`padded_row_blocks`), written into
+    the full (n, m) result."""
+    out = x.new_empty((x.shape[0], z.shape[0]))
+    for i, rows, c in padded_row_blocks(BLOCK_ROWS, x):
+        out[i:i + rows] = gram_rows(c, z, kind=kind, sigma=sigma)[:rows]
+    return out
 
 
 def check_operands(fn: str, kind: str, **tensors) -> torch.device:

@@ -46,18 +46,17 @@ def gram(x, z, *, kind: str = "gaussian", sigma: float = 1.0, policy=None):
 
 
 def kmvp_fwd(x, z, beta, *, kind: str = "gaussian", sigma: float = 1.0,
-             block_rows: int | None = None, policy=None):
+             policy=None):
     """o = k(x, z) @ beta with k(x, z) never materialized.
 
     ``beta`` may be (m,) or an (m, k) block of right-hand sides; returns
     (n,) or (n, k) to match. A CUDA tensor runs the fused kernel; a CPU
-    tensor runs the row-chunked plain version (``block_rows`` rows at a
-    time, default :func:`otf_block_rows`).
+    tensor runs its row-chunked plain version at the default chunk
+    (:func:`otf_block_rows`).
     """
     require_fp32(policy)
     b2, squeeze = _as_cols(beta)
-    out = _kmvp.kmvp_fwd(_f32(x), _f32(z), _f32(b2), kind=kind, sigma=sigma,
-                         block_rows=block_rows)
+    out = _kmvp.kmvp_fwd(_f32(x), _f32(z), _f32(b2), kind=kind, sigma=sigma)
     return out[:, 0] if squeeze else out
 
 
@@ -74,6 +73,34 @@ def kmvp_fwd_chunked(x, z, beta, *, kind: str = "gaussian",
     return out[:, 0] if squeeze else out
 
 
-#: The reference's dispatcher name (``repro.kernels.ops.otf_kmvp_fwd``); its
-#: ``backend`` choice does not exist in the port, so it is :func:`kmvp_fwd`.
+def kmvp_t(x, z, v, *, kind: str = "gaussian", sigma: float = 1.0,
+           policy=None):
+    """g = k(x, z)^T @ v with k(x, z) never materialized.
+
+    ``v`` may be (n,) or an (n, k) block; returns (m,) or (m, k) to match.
+    A CUDA tensor runs the kmvp_t kernel; a CPU tensor runs its row-chunked
+    plain version at the default chunk (:func:`otf_block_rows`).
+    """
+    require_fp32(policy)
+    v2, squeeze = _as_cols(v)
+    out = _kmvp.kmvp_t(_f32(x), _f32(z), _f32(v2), kind=kind, sigma=sigma)
+    return out[:, 0] if squeeze else out
+
+
+def kmvp_t_chunked(x, z, v, *, kind: str = "gaussian", sigma: float = 1.0,
+                   block_rows: int | None = None, policy=None):
+    """The plain row-chunked g = k(x, z)^T @ v on any device: the kmvp_t
+    kernel's plain version. Peak transient is one (block_rows, m) gram
+    chunk; chunks are summed in row order."""
+    require_fp32(policy)
+    v2, squeeze = _as_cols(v)
+    out = _kmvp.kmvp_t_plain(_f32(x), _f32(z), _f32(v2), kind=kind,
+                             sigma=sigma, block_rows=block_rows)
+    return out[:, 0] if squeeze else out
+
+
+#: The reference's dispatcher names (``repro.kernels.ops.otf_kmvp_fwd``,
+#: ``otf_kmvp_t``); their ``backend`` choice does not exist in the port, so
+#: they are :func:`kmvp_fwd` and :func:`kmvp_t`.
 otf_kmvp_fwd = kmvp_fwd
+otf_kmvp_t = kmvp_t

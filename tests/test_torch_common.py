@@ -7,6 +7,8 @@ PyTorch version.
 """
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 # The suite runs several pytest workers side by side on one host; keep the
 # port's tests from taking every core.
@@ -55,3 +57,32 @@ def t(a) -> torch.Tensor:
     """numpy -> CPU torch tensor (a copy, so the reference's array is
     never aliased)."""
     return torch.tensor(np.asarray(a))
+
+
+def mixture(n, d, n_classes, clusters_per_class, seed, margin=1.0):
+    """Gaussian-mixture rows and their cluster's class (cluster index mod
+    ``n_classes``), fp32 numpy from ``seed``: the geometry of the
+    reference's ``repro.data.make_classification`` / ``make_multiclass``
+    (class regions interleave, so the boundary is nonlinear)."""
+    rng = np.random.default_rng(seed)
+    n_clusters = n_classes * clusters_per_class
+    centers = rng.standard_normal((n_clusters, d)).astype(np.float32) * margin
+    cls = rng.integers(0, n_clusters, n)
+    noise = rng.standard_normal((n, d)).astype(np.float32)
+    x = centers[cls] + noise * np.float32(margin * 0.6 + 0.2)
+    return x.astype(np.float32), (cls % n_classes).astype(np.int32)
+
+
+class LargestTensor(TorchDispatchMode):
+    """Records the element count of the largest tensor any op creates."""
+
+    def __init__(self):
+        super().__init__()
+        self.largest = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for leaf in tree_leaves(out):
+            if isinstance(leaf, torch.Tensor):
+                self.largest = max(self.largest, leaf.numel())
+        return out

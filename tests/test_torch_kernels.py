@@ -1,7 +1,7 @@
 """The port's kernel layer against the JAX reference, on the CPU.
 
 Oracles (``kernels/ref.py``), the Nystrom pieces, and each kernel module
-through its plain PyTorch version: ``repro_torch.kernels.ops`` against
+(gram, kmvp_fwd, kmvp_t) through its plain PyTorch version: ``repro_torch.kernels.ops`` against
 ``repro.kernels.ops`` (the Pallas kernels in interpret mode, which the
 reference picks by itself off-TPU) and the reference's jnp fallback, at
 the reference's fp32 bar. A CUDA tensor would launch the hand-written
@@ -149,6 +149,64 @@ def test_one_dimensional_beta_squeezes():
                                               jnp.asarray(b), **kw))
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("k", [1, 4])
+def test_ops_kmvp_t_matches_reference_kernel(shape, kind, k):
+    """g = C^T v through the port's plain version against the reference's
+    Pallas kmvp_t (interpret mode off-TPU) and its materializing oracle."""
+    n, m, d = shape
+    x, z = kernel_inputs(n, m, d)
+    v = np.random.default_rng(2).standard_normal((n, k)).astype(np.float32)
+    kw = dict(kind=kind, sigma=sigma_for(d))
+    xj, zj, vj = jnp.asarray(x), jnp.asarray(z), jnp.asarray(v)
+    want = np.asarray(r_ops.kmvp_t(xj, zj, vj, **kw))
+    want_ref = np.asarray(r_ref.kmvp_t_ref(xj, zj, vj, **kw))
+    for fn in (p_ops.kmvp_t, p_ops.kmvp_t_chunked, p_ops.otf_kmvp_t,
+               p_kmvp.kmvp_t_plain, p_kmvp.kmvp_t):
+        got = fn(t(x), t(z), t(v), **kw)
+        assert got.shape == (m, k) and got.dtype == torch.float32
+        assert_close_fp32(got, want)
+        assert_close_fp32(got, want_ref)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_kmvp_t_is_the_adjoint_of_kmvp_fwd(kind):
+    """<C b, v> = <b, C^T v> over the same implicit C, in float64 sums of
+    the fp32 results (the reference's adjoint check)."""
+    n, m, d = 130, 96, 54
+    x, z, b = kernel_inputs(n, m, d, 3)
+    v = np.random.default_rng(3).standard_normal((n, 3)).astype(np.float32)
+    kw = dict(kind=kind, sigma=sigma_for(d))
+    cb = to_np(p_ops.kmvp_fwd(t(x), t(z), t(b), **kw)).astype(np.float64)
+    ctv = to_np(p_ops.kmvp_t(t(x), t(z), t(v), **kw)).astype(np.float64)
+    lhs, rhs = np.sum(cb * v), np.sum(b * ctv)
+    assert abs(lhs - rhs) <= 1e-5 * max(1.0, abs(lhs)), (lhs, rhs)
+
+
+def test_kmvp_t_squeezes_and_chunks():
+    """A 1-D v gives an (m,) result equal to the (n, 1) column; the plain
+    version's row chunk (padded rows included) changes nothing beyond fp32
+    rounding, and the default chunk is keyed on m."""
+    n, m, d = 37, 64, 16
+    x, z = kernel_inputs(n, m, d)
+    v = np.random.default_rng(4).standard_normal(n).astype(np.float32)
+    kw = dict(kind="gaussian", sigma=sigma_for(d))
+    for fn in (p_ops.kmvp_t, p_ops.kmvp_t_chunked, p_ops.otf_kmvp_t):
+        got = fn(t(x), t(z), t(v), **kw)
+        assert got.shape == (m,)
+        np.testing.assert_array_equal(
+            to_np(got), to_np(fn(t(x), t(z), t(v[:, None]), **kw))[:, 0])
+    want = r_ops.kmvp_t(jnp.asarray(x), jnp.asarray(z), jnp.asarray(v), **kw)
+    for rows in (8, 16, 40):
+        assert_close_fp32(p_ops.kmvp_t_chunked(t(x), t(z), t(v),
+                                               block_rows=rows, **kw), want)
+    np.testing.assert_array_equal(
+        to_np(p_ops.kmvp_t(t(x), t(z), t(v), **kw)),
+        to_np(p_ops.kmvp_t_chunked(t(x), t(z), t(v),
+                                   block_rows=p_ops.otf_block_rows(m), **kw)))
+
+
 def test_plain_fused_rows_do_not_depend_on_the_batch():
     """The plain fused version pads every row chunk to one shape, so a row's
     margin is bitwise the same alone, at any position, in any batch."""
@@ -172,6 +230,24 @@ def test_otf_block_rows_depends_on_m_only():
         assert rows % 8 == 0 and 8 <= rows <= 128
 
 
+@pytest.mark.parametrize("n", [0, 5, 8, 21])
+def test_padded_row_blocks_cover_every_row_once(n):
+    """Every block has exactly ``rows`` rows; the real rows, in order,
+    are the input, and the padding is zeros."""
+    x = torch.arange(n * 3, dtype=torch.float32).reshape(n, 3)
+    v = torch.arange(n, dtype=torch.float32)[:, None] + 1.0
+    starts, xs, vs = [], [], []
+    for i, count, xb, vb in p_gram.padded_row_blocks(8, x, v):
+        assert xb.shape == (8, 3) and vb.shape == (8, 1)
+        assert not xb[count:].any() and not vb[count:].any()
+        starts.append(i)
+        xs.append(xb[:count])
+        vs.append(vb[:count])
+    assert starts == list(range(0, n, 8))
+    if n:
+        assert torch.equal(torch.cat(xs), x) and torch.equal(torch.cat(vs), v)
+
+
 # -------------------------------------------------------- wrapper contracts
 def test_wrappers_reject_what_the_kernels_do_not_take():
     x, z, b = kernel_inputs(8, 16, 4, 2)
@@ -189,21 +265,32 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="no kernel for device"):
         p_gram.gram(X.to("meta"), Z.to("meta"))
     with pytest.raises(ValueError, match="shapes disagree"):
-        p_kmvp.kmvp_fwd(X, Z, B[:8], block_rows=8)
+        p_kmvp.kmvp_fwd(X, Z, B[:8])
     with pytest.raises(ValueError, match="right-hand sides"):
-        p_kmvp.kmvp_fwd(X, Z, t(np.ones((16, 17), np.float32)), block_rows=8)
+        p_kmvp.kmvp_fwd(X, Z, t(np.ones((16, 17), np.float32)))
     with pytest.raises(NotImplementedError, match="precision slice"):
         p_ops.gram(X, Z, policy="bf16")
     with pytest.raises(NotImplementedError, match="precision slice"):
         p_ops.kmvp_fwd(X, Z, B, policy="fp16")
+    V = t(np.ones((8, 2), np.float32))
+    with pytest.raises(ValueError, match="shapes disagree"):
+        p_kmvp.kmvp_t(X, Z, V[:5])
+    with pytest.raises(ValueError, match="right-hand sides"):
+        p_kmvp.kmvp_t(X, Z, t(np.ones((8, 17), np.float32)))
+    with pytest.raises(NotImplementedError, match="float32"):
+        p_kmvp.kmvp_t(X.double(), Z.double(), V.double())
+    with pytest.raises(NotImplementedError, match="precision slice"):
+        p_ops.kmvp_t(X, Z, V, policy="bf16")
 
 
 def test_cpu_path_never_counts_a_launch():
     x, z, b = kernel_inputs(8, 16, 4, 2)
-    before = (p_gram.launches, p_kmvp.launches)
+    before = (p_gram.launches, p_kmvp.launches, p_kmvp.kmvp_t_launches)
     p_ops.gram(t(x), t(z))
     p_ops.kmvp_fwd(t(x), t(z), t(b))
-    assert (p_gram.launches, p_kmvp.launches) == before
+    p_ops.kmvp_t(t(x), t(z), t(np.ones((8, 2), np.float32)))
+    assert (p_gram.launches, p_kmvp.launches,
+            p_kmvp.kmvp_t_launches) == before
 
 
 # ------------------------------------------------------- policies and losses

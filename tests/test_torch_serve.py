@@ -1,5 +1,5 @@
 """The port's serving path on the CPU: bucketing against the reference,
-bitwise batch independence of the fused arm, the serial server, the fused
+bitwise batch independence of both decide arms, the serial server, the fused
 arm's memory contract, and that the port imports neither jax nor repro."""
 import os
 import subprocess
@@ -7,9 +7,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 
 from repro.api import MachineConfig as RefConfig
 from repro.api.infer import bucket_rows as ref_bucket_rows
@@ -21,7 +18,8 @@ from repro_torch.api.infer import (MIN_BUCKET, BucketedDecider, bucket_rows,
                                    scatter_rows)
 from repro_torch.launch import kernel_serve
 from repro_torch.serve import ModelRegistry, percentiles, serving_plan
-from test_torch_common import assert_close_fp32, kernel_inputs, to_np
+from test_torch_common import (LargestTensor, assert_close_fp32,
+                               kernel_inputs, to_np)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FUSED = "otf_shard"
@@ -82,6 +80,24 @@ def test_fused_arm_rows_are_batch_independent_bitwise(k):
     assert_close_fp32(full, km.decision_function(X, plan="local"))
 
 
+@pytest.mark.parametrize("k", [0, 3])
+def test_local_arm_rows_are_batch_independent_bitwise(k):
+    """The dense arm contracts the query gram with β in fixed-shape
+    256-row blocks (the last one zero-padded), so a row's margin is bitwise
+    the same alone, at any position, and across block boundaries."""
+    km = _machine(k=k, plan="local")
+    X = _queries(600)
+    full = to_np(km.decision_function(X))
+    for i in (0, 3, 255, 256, 599):
+        np.testing.assert_array_equal(
+            to_np(km.decision_function(X[i:i + 1]))[0], full[i])
+        np.testing.assert_array_equal(
+            to_np(km.decision_function(X[[7, i]]))[1], full[i])
+    dec = BucketedDecider(km.decider(), max_batch=256)
+    np.testing.assert_array_equal(dec(X[:200])[:5], dec(X[:5]))
+    assert_close_fp32(full, km.decision_function(X, plan=FUSED))
+
+
 def test_bucketed_decider_warmup_runs_every_bucket():
     km = _machine(plan=FUSED)
     dec = BucketedDecider(km.decider(), max_batch=48)
@@ -99,10 +115,8 @@ def test_serve_stream_answers_with_decision_function(plan):
     Xq = _queries(37)
     served = endpoint(Xq)
     direct = to_np(km.decision_function(Xq))
-    if plan == FUSED:
-        np.testing.assert_array_equal(served, direct)
-    else:        # the dense arm's matmul may round by batch shape
-        assert_close_fp32(served, direct)
+    # both arms: the dense one contracts in fixed-shape row blocks
+    np.testing.assert_array_equal(served, direct)
 
 
 def test_kernel_serve_cli(tmp_path):
@@ -141,29 +155,14 @@ def test_model_registry(tmp_path):
 
 
 # --------------------------------------------------------- memory contract
-class _LargestTensor(TorchDispatchMode):
-    """Records the element count of the largest tensor any op creates."""
-
-    def __init__(self):
-        super().__init__()
-        self.largest = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        for leaf in tree_leaves(out):
-            if isinstance(leaf, torch.Tensor):
-                self.largest = max(self.largest, leaf.numel())
-        return out
-
-
 def test_fused_arm_never_materializes_the_query_gram():
     n, m = 300, 96
     km = _machine(m=m, k=3)
     X = _queries(n)
-    with _LargestTensor() as probe:
+    with LargestTensor() as probe:
         km.decision_function(X, plan=FUSED)
     assert probe.largest < n * m, (probe.largest, n * m)
-    with _LargestTensor() as probe:              # the probe sees the dense
+    with LargestTensor() as probe:              # the probe sees the dense
         km.decision_function(X, plan="local")    # arm's (n, m) gram
     assert probe.largest >= n * m
 
